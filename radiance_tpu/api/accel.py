@@ -42,9 +42,8 @@ class TopAccelStruct:
     """Built TLAS: serialized blob + host arrays + lazy device scene.
 
     `blob` is a lazy property: refit() only invalidates it, because
-    reserializing the full AS byte blob per animation frame was ~97%
-    of the rigid-refit frame cost (chain_r5 ANIM3: 3.3 s/frame of
-    which the 262k-ray TLAS-native trace is ~0.1 s).  Reading .blob
+    reserializing the full AS byte blob per animation frame would
+    dominate a rigid-refit frame.  Reading .blob
     after a refit still reflects the refit state (checkpoint of
     animated scenes, tests/test_refit.py)."""
     _blob: Optional[bytes]

@@ -75,7 +75,7 @@ def CreateShaderModule(platform: Platform, code, size: int = 0,
     raise TypeError(
         "CreateShaderModule expects a RaygenProgram (see "
         "radiance_tpu.engine.programs); runtime OpenCL-source compilation "
-        "does not exist on TPU.")
+        "does not exist here.")
 
 
 def CreatePipeline(info: Dict or Pipeline) -> Pipeline:

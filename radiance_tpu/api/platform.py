@@ -5,7 +5,7 @@ radiance/include/radiance.h:115-174, radiance/src/radiance.cpp:86-240):
 a singleton Platform and CreateBuffer/CreateImage/CreateImageArray/
 CreateSampler with blocking Read/Write.
 
-TPU redesign: a Buffer is host bytes + a lazily-synced device array.
+Redesign: a Buffer is host bytes + a lazily-synced device array.
 Frame-loop state (the accumulation scratch) stays device-resident across
 TraceRays calls -- the reference round-trips every frame
 (sample1.cpp:469-490); here ReadBuffer only materializes host bytes on

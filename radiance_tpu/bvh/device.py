@@ -1,6 +1,6 @@
 """DeviceScene: the SoA acceleration-structure layout traversal consumes.
 
-TPU-native redesign of the reference's pointer-chasing byte-blob layout
+Redesign of the reference's pointer-chasing byte-blob layout
 (reference: radiance/shader/data.cl:92-99 offset macros): instead of one
 buffer with byte offsets, the scene is a pytree of flat arrays:
 
@@ -23,14 +23,15 @@ NumPy -- a 1M-triangle scene assembles in seconds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Sequence
+
+import functools
 
 import numpy as np
-import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from radiance_tpu.core import struct
 
 from radiance_tpu import config
 from radiance_tpu.core import types
@@ -39,11 +40,6 @@ from radiance_tpu.core import types
 KIND_INNER = 0
 KIND_TRI_LEAF = 1
 KIND_INST_LEAF = 2
-
-# Scenes with at most this many instances get per-BLAS packet-kernel
-# tables for instance-sequential sweeps (each sweep retraces the whole
-# wavefront against one BLAS, so the cost is linear in instance count).
-MAX_KERNEL_INSTANCES = 64   # kernel-table memory ~ total leaves x 32KB
 
 
 @struct.dataclass
@@ -78,31 +74,6 @@ class DeviceScene:
     # bundle_packed[b, j] = [v0.xyz, e1.xyz, e2.xyz, bitcast(prim), 0, 0]
     bundle_packed: jnp.ndarray   # [Nb, W, 12] f32
 
-    # --- optional Pallas packet-kernel tables (bvh/kernel_pack.py);
-    # singleton fields for the single-instance fast path, kblas for
-    # instance-sequential sweeps over few-instance scenes
-    knode_f: Optional[jnp.ndarray] = None   # [8*Nk, 16] f32 merged rows
-    knode_i: Optional[jnp.ndarray] = None   # [8*Nk, 4] i32
-    kleaf: Optional[jnp.ndarray] = None     # [Nl, 16, 4T] f32
-    kprim: Optional[jnp.ndarray] = None     # [Nf + T] i32
-    ktri_geo: Optional[jnp.ndarray] = None  # [Nf + T, 9] f32 (v0,e1,e2)
-    # per unique BLAS: (knode_f, kleaf, kprim, ktri_geo); inst_kblas
-    # maps each instance slot to its kblas entry (static python tuple)
-    kblas: Optional[tuple] = None
-    inst_kblas: Optional[tuple] = struct.field(
-        pytree_node=False, default=None)
-    # stacked per-unique-BLAS sweep tables + instance index + world
-    # AABBs (ops/stream3_multi.MultiTables.as_tuple): attaching them
-    # makes the TLAS-culled many-instance stream path usable inside
-    # TRACED frames (see stream3_multi.attach_multi_tables)
-    multi: Optional[tuple] = None
-    # frame mode of the BUILT kernel tables (kernel_pack 'stable'):
-    # True = leaf-local moments + centroid rows (RADIANCE_STABLE_FRAMES
-    # at build time).  STATIC so trace-time kernels can bake the
-    # matching variant; tracers derive from this, never from the env
-    # (advisor r4: an env flip between build and trace silently
-    # mis-intersected)
-    stable_frames: bool = struct.field(pytree_node=False, default=False)
 
 META_A_MASK = (1 << 26) - 1
 META_COUNT_SHIFT = 26
@@ -294,10 +265,10 @@ def update_tlas(scene: DeviceScene,
                                           blas_root_by_offset)
     # one donated dispatch instead of three eager full-array copies:
     # donation lets XLA update the TLAS block in place, so a refit
-    # frame pays capacity*32B of upload, not ~56 MB of device copies
-    # + 3 dispatch round trips (rigid-anim frame cost, chain_r5
-    # ANIM4).  The OLD scene's node arrays are invalidated -- refit
-    # semantically mutates the device scene in place (docstring).
+    # frame pays capacity*32B of upload, not a full copy of the node
+    # arrays + 3 dispatch round trips.  The OLD scene's node arrays are
+    # invalidated -- refit semantically mutates the device scene in
+    # place (docstring).
     np_new, nmin_new, nmax_new = _tlas_block_update(
         scene.node_packed, scene.node_min, scene.node_max,
         jnp.asarray(packed), capacity)
@@ -346,29 +317,11 @@ def build_device_scene(tlas_nodes: np.ndarray,
     blas_root_by_offset = {}
     node_base = len(tlas.kind)
     bundle_base = 0
-    ktables = None
-    kblas_by_offset = {}
-    # packet-kernel tables are built per unique BLAS when the instance
-    # count is small enough for instance-sequential kernel sweeps
-    # (ops/packet_trace.trace_rays_packet_multi)
-    want_ktables = (len(device_instances) == 1
-                    or len(device_instances) <= MAX_KERNEL_INSTANCES)
     for off in sorted(blas_by_offset.keys()):
         nodes, faces, verts = blas_by_offset[off]
         verts3 = np.ascontiguousarray(np.asarray(verts, np.float32)[:, :3])
         t = _decode_nodes(nodes, KIND_TRI_LEAF)
         _split_oversized_leaves(t, leaf_width)
-        if want_ktables:
-            # derive the Pallas packet-kernel tables before
-            # _bundle_triangles rewrites leaf start indices
-            from radiance_tpu.bvh import kernel_pack
-            kt = kernel_pack.build_kernel_tables(
-                t.kind, t.a, t.b, t.bot, t.top, faces, verts3)
-            kblas_by_offset[off] = kt
-            if kt is None:
-                want_ktables = False  # one oversized BLAS disables all
-            elif len(blas_by_offset) == 1 and len(device_instances) == 1:
-                ktables = kt
         v0, e1, e2, prim = _bundle_triangles(t, faces, verts3, leaf_width,
                                              bundle_base)
         bundle_base += len(v0)
@@ -462,26 +415,6 @@ def build_device_scene(tlas_nodes: np.ndarray,
         inst_custom=jnp.asarray(device_instances["customInstanceID"].astype(np.int32)),
         inst_sbt=jnp.asarray(device_instances["SBTOffset"].astype(np.int32)),
         inst_blas_root=jnp.asarray(blas_root),
-        knode_f=None if ktables is None else jnp.asarray(ktables["knode_f"]),
-        knode_i=None if ktables is None else jnp.asarray(ktables["knode_i"]),
-        kleaf=None if ktables is None else jnp.asarray(ktables["kleaf"]),
-        kprim=None if ktables is None else jnp.asarray(ktables["kprim"]),
-        ktri_geo=(None if ktables is None
-                  else jnp.asarray(ktables["ktri_geo"])),
-        kblas=(None if not want_ktables else tuple(
-            (jnp.asarray(kblas_by_offset[off]["knode_f"]),
-             jnp.asarray(kblas_by_offset[off]["kleaf"]),
-             jnp.asarray(kblas_by_offset[off]["kprim"]),
-             jnp.asarray(kblas_by_offset[off]["ktri_geo"]))
-            for off in sorted(blas_by_offset.keys()))),
-        inst_kblas=(None if not want_ktables else tuple(
-            sorted(blas_by_offset.keys()).index(
-                int(r["bottomAccelStructOffset"]))
-            for r in device_instances)),
-        stable_frames=(
-            bool(ktables["stable"]) if ktables is not None
-            else (bool(next(iter(kblas_by_offset.values()))["stable"])
-                  if want_ktables and kblas_by_offset else False)),
     )
 
 

@@ -3,7 +3,7 @@
 The reference builds BVHs exclusively on the host with a recursive SAH
 sweep (reference: radiance/src/bvh.cpp:46-285) -- fine for static scenes,
 but rebuilds for animated geometry would round-trip the device.  This
-builder runs entirely on the TPU with vectorized primitives:
+builder runs entirely on the device with vectorized primitives:
 
   1. quantize triangle centroids to a 10-bit grid, interleave to 30-bit
      Morton codes
@@ -167,15 +167,14 @@ def build_lbvh(tri_v0: jnp.ndarray, tri_v1: jnp.ndarray, tri_v2: jnp.ndarray,
     v2g = jnp.where(valid[..., None], tri_v2[src], 0.0)
     pidg = jnp.where(valid, prim_id[src], -1).astype(jnp.int32)
 
-    # bundles are packed in INT32 space: TPU float ops flush denormal
-    # bit patterns to zero and canonicalize NaN payloads, so an int
+    # bundles are packed in INT32 space: device float ops may flush
+    # denormal bit patterns to zero and canonicalize NaN payloads, so an int
     # (prim id, meta word, escape index) bitcast into an f32 array and
     # then touched by ANY f32 update/select is silently corrupted on
-    # device (chain_r5 ANIMP2: meta 0x00000faf -> 0x0, esc 0xffffffff
-    # -> 0x7fc00000).  Building the packed rows as int32 and
-    # bitcasting ONCE at the end is bit-safe: gathers/slices of the
-    # f32 result are pure data movement (proven on chip -- host-packed
-    # arrays traverse correctly).
+    # device (e.g. meta 0x00000faf -> 0x0, esc 0xffffffff ->
+    # 0x7fc00000).  Building the packed rows as int32 and bitcasting
+    # ONCE at the end is bit-safe: gathers/slices of the f32 result
+    # are pure data movement.
     bundle_i = jnp.zeros((g, LEAF_W, 12), jnp.int32)
     bundle_i = bundle_i.at[:, :, 0:3].set(
         jax.lax.bitcast_convert_type(v0g, jnp.int32))
@@ -272,7 +271,7 @@ def lbvh_scene(vertices: jnp.ndarray, triangles: jnp.ndarray) -> DeviceScene:
 
     # TLAS: single instance-leaf root at node 0; BLAS nodes at offset 1.
     # Rebase BLAS child indices (+1) without disturbing leaf bundle
-    # refs -- ALL in int32 space (TPU f32 ops corrupt int bit
+    # refs -- ALL in int32 space (device f32 ops may corrupt int bit
     # patterns: denormal flush + NaN canonicalization; see build_lbvh)
     meta = jax.lax.bitcast_convert_type(bp_i[:, 6], jnp.uint32)
     a = (meta & META_A_MASK).astype(jnp.int32)

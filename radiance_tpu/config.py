@@ -2,8 +2,8 @@
 
 Mirrors the reference's compile-time knobs (reference: radiance/src/bvh.h:9
 MAX_LEAF_PRIM_SIZE, radiance/shader/radiance.cl:38-39 stack sizes,
-radiance/shader/data.cl:80-83 type tags) while adding TPU-specific tiling
-parameters.
+radiance/shader/data.cl:80-83 type tags) plus the wavefront engine's
+fixed-shape layout parameters.
 """
 
 # --- BVH build ---------------------------------------------------------------
@@ -13,7 +13,7 @@ MAX_LEAF_PRIM_SIZE = 8
 
 # Device-side leaf bundle width: every leaf is normalized to hold at most this
 # many primitives (oversized no-SAH-improvement leaves get median-split).  Keeps
-# leaf intersection a fixed-shape 8-wide vector op on TPU.
+# leaf intersection a fixed-shape 8-wide vector op.
 LEAF_WIDTH = 8
 
 # --- Acceleration structure type tags (reference: data.cl:80-86) -------------
@@ -27,45 +27,12 @@ LEAF_FLAG = 0x80000000
 COUNT_MASK = 0x7FFFFFFF
 
 # --- Traversal ---------------------------------------------------------------
-# Reference uses per-ray stacks of 8 (TLAS) and 100 (BLAS)
-# (reference: radiance.cl:38-39).  Our unified two-level walk uses one stack;
-# 64 entries covers TLAS depth + restore sentinel + BLAS depth for the scene
-# sizes the reference targets (SAH trees of 1M tris are ~30 deep).
-TRAVERSAL_STACK_SIZE = 64
-
-# Rays are processed in fixed-size chunks to bound traversal state memory
-# (stack is [chunk, STACK] int32).
-DEFAULT_RAY_CHUNK = 1 << 17  # 131072 rays -> 32 MiB of stack
-
-# --- Pallas / Mosaic ----------------------------------------------------------
-# Scoped-VMEM budget requested from the Mosaic compiler by the traversal
-# kernels.  v5e has 128 MiB of VMEM per core; the terminal-side compiler
-# build of 2026-08-19 ENFORCES the requested limit at compile time, so
-# every kernel must request what it actually peaks at.  Overridable via
-# RADIANCE_VMEM_MB (validated: an out-of-range value would otherwise
-# surface as an opaque Mosaic 'Scoped allocation ... exceeded' error).
-VMEM_MAX_MB = 128
-
-
-def vmem_limit_bytes(default_mb: int = VMEM_MAX_MB) -> int:
-    import os
-
-    raw = os.environ.get("RADIANCE_VMEM_MB")
-    if raw is None:
-        mb = default_mb
-    else:
-        try:
-            mb = int(raw)
-        except ValueError:
-            raise ValueError(
-                f"RADIANCE_VMEM_MB must be an integer in (0, "
-                f"{VMEM_MAX_MB}], got {raw!r}") from None
-        if not 0 < mb <= VMEM_MAX_MB:
-            raise ValueError(
-                f"RADIANCE_VMEM_MB must be in (0, {VMEM_MAX_MB}] "
-                f"(v5e VMEM is {VMEM_MAX_MB} MiB), got {mb}")
-    return mb * 1024 * 1024
-
+# The reference walks per-ray stacks of 8 (TLAS) and 100 (BLAS) entries
+# (reference: radiance.cl:38-39); the wavefront walk is stackless (escape
+# indices, ops/traversal.py).  Waves larger than this many rays are traced
+# as a lax.map over chunks, which bounds the walk's per-ray state (about
+# 100 bytes per ray) and lets finished chunks retire early.
+DEFAULT_RAY_CHUNK = 1 << 17
 
 # --- Images ------------------------------------------------------------------
 CHANNEL = 4  # RGBA, reference: radiance.h:84

@@ -1,6 +1,6 @@
 """Core math: RNG, linear algebra, tangent frames.
 
-TPU-native equivalent of the reference's device math library
+Equivalent of the reference's device math library
 (reference: radiance/shader/math.cl).  Everything is written as batched
 `jnp` functions operating on `[..., 3]` / `[..., 4, 4]` arrays so they
 vectorize over ray wavefronts; no per-element Python control flow.
@@ -64,9 +64,9 @@ def normalize(v, eps: float = 0.0):
 # -----------------------------------------------------------------------------
 
 # These are written as explicit broadcasted multiply-adds rather than einsum:
-# einsum lowers to the MXU with default (bf16) precision on TPU, which is both
-# wasteful for 4x4 shapes and lossy for geometry.  The sum-over-last-axis form
-# stays on the VPU in full float32.
+# einsum lowers to a matrix unit at the backend's default precision (TF32 or
+# bf16 on some accelerators), which is both wasteful for 4x4 shapes and lossy
+# for geometry.  The sum-over-last-axis form stays in full float32.
 
 def mat4_vec4(m, v):
     """[..., 4, 4] @ [..., 4] -> [..., 4].  Reference: math.cl:25-31."""
@@ -94,7 +94,7 @@ def mat4_inverse(m):
     Returns the inverse; a singular matrix yields inf/nan entries (the
     reference returns false and leaves the output undefined -- callers in the
     reference never check).  Uses jnp.linalg.inv-free formulation to stay
-    compatible with f32 TPU execution.
+    in plain float32 elementwise arithmetic.
     """
     m = jnp.asarray(m)
     # unpack row-major entries

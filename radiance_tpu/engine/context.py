@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import jax.numpy as jnp
-from flax import struct
+from radiance_tpu.core import struct
 
 from radiance_tpu.core import math as rmath
 from radiance_tpu.ops import texture as texture_ops

@@ -1,6 +1,6 @@
-"""Ray/primitive intersection kernels (batched, VPU-friendly).
+"""Ray/primitive intersection routines (batched, elementwise).
 
-TPU-native equivalents of the reference's device intersection routines
+Equivalents of the reference's device intersection routines
 (reference: radiance/shader/radiance.cl:194-251): slab AABB test and
 Möller–Trumbore triangle test, written as shape-polymorphic `jnp`
 functions that broadcast over arbitrary leading batch dimensions.
@@ -27,8 +27,15 @@ def intersect_aabb(origin, inv_dir, box_min, box_max, t_clip=None):
     """
     t0 = (box_min - origin) * inv_dir
     t1 = (box_max - origin) * inv_dir
-    t_near = jnp.max(jnp.minimum(t0, t1), axis=-1)
-    t_far = jnp.min(jnp.maximum(t0, t1), axis=-1)
+    # A ray parallel to an axis (inv_dir = +-inf) that starts exactly on
+    # one of that axis's slab planes gives 0 * inf = NaN.  It lies inside
+    # the (inclusive) slab for every t, so that axis must not constrain
+    # the interval; NaN would instead fail every comparison and cull the
+    # box.
+    lo = jnp.minimum(t0, t1)
+    hi = jnp.maximum(t0, t1)
+    t_near = jnp.max(jnp.where(jnp.isnan(lo), -jnp.inf, lo), axis=-1)
+    t_far = jnp.min(jnp.where(jnp.isnan(hi), jnp.inf, hi), axis=-1)
     # The reference tests tFar > max(tNear, 0) strictly (radiance.cl:204),
     # which rejects zero-thickness boxes -- flat axis-aligned geometry
     # (walls, quads) produces exactly those, so the reference silently culls
@@ -94,32 +101,3 @@ def intersect_triangle_soup(origin, direction, v0, e1, e2, tmin, tmax):
         b1[n, best],
         b2[n, best],
     )
-
-
-def dot_bf16x3(x, w, dims):
-    """Hand-rolled 3-pass bf16x3 matmul: split each f32 operand into a
-    bf16 high part plus a bf16 residual and sum three DEFAULT bf16 MXU
-    passes (the xl@wl term is ~2^-32 relative and dropped).  ~16
-    mantissa bits of each operand at half the MXU cost of HIGHEST's
-    exact-f32 six passes.  Exists because Mosaic rejects
-    lax.Precision.HIGH inside Pallas kernels ('Unsupported dot
-    precision: HIGH', chain_r4 2026-08-21).  Pluecker-sign safety is
-    an on-chip question: benchmarks/verify_entry.py under
-    VERIFY_PREC=high is the acceptance gate (BASELINE.md round-3
-    incident: per-pair relative error is the WRONG metric for sign
-    tests, only hit/prim/t agreement against the oracle counts).
-    Shared by the stream3 isect kernels and the gen-1 packet kernel
-    (RADIANCE_PK_PRECISION=high)."""
-    import jax
-
-    f32 = jnp.float32
-    xh = x.astype(jnp.bfloat16)
-    xl = (x - xh.astype(f32)).astype(jnp.bfloat16)
-    wh = w.astype(jnp.bfloat16)
-    wl = (w - wh.astype(f32)).astype(jnp.bfloat16)
-
-    def d(a, b):
-        return jax.lax.dot_general(a, b, dims,
-                                   preferred_element_type=f32)
-
-    return d(xh, wh) + d(xh, wl) + d(xl, wh)

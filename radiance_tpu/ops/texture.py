@@ -1,6 +1,6 @@
 """Texture image-array sampling.
 
-TPU-native equivalent of the reference's OpenCL image2d_array + sampler
+Equivalent of the reference's OpenCL image2d_array + sampler
 (reference: radiance.cpp:96-131 CreateImageArray/CreateSampler;
 shader2.cl:255-265 read_imageui usage): a [T, H, W, 4] uint8 array sampled
 with normalized coordinates, OpenCL addressing modes (clamp-to-edge,

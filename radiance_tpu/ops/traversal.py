@@ -1,8 +1,9 @@
 """Two-level BVH traversal, vectorized over ray wavefronts.
 
-TPU-native redesign of the reference's per-ray stack walk
-(reference: radiance/shader/radiance.cl:41-192).  Three structural choices
-drive the design, all motivated by the TPU memory system:
+Wavefront redesign of the reference's per-ray stack walk
+(reference: radiance/shader/radiance.cl:41-192) as plain JAX that XLA
+compiles for any backend.  Three structural choices drive the design,
+all aimed at keeping per-ray state small and memory access coalesced:
 
 1. **Threaded (stackless) BVH.** Every node carries a precomputed escape
    index, so a ray's traversal state is three int32 registers (current
@@ -38,7 +39,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from radiance_tpu.core import struct
 
 from radiance_tpu import config
 from radiance_tpu.bvh.device import (

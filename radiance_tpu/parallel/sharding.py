@@ -1,11 +1,11 @@
-"""Multi-chip scaling: pixel-tile data parallelism over a device mesh.
+"""Multi-device scaling: pixel-tile data parallelism over a device mesh.
 
 The reference is strictly single-device (SURVEY.md §2.2); this is the
-TPU-native scale-out the rebuild adds: rays are embarrassingly parallel,
-so the natural mapping is sharding the pixel wavefront across chips with
-`shard_map` -- the scene is replicated, each chip traverses and shades its
-own pixel rows with zero communication, and only image assembly touches
-ICI (an all-gather XLA inserts at the output).
+scale-out the rebuild adds: rays are embarrassingly parallel, so the
+natural mapping is sharding the pixel wavefront across devices with
+`shard_map` -- the scene is replicated, each device traverses and shades
+its own pixel rows with zero communication, and only image assembly
+moves data between devices (an all-gather XLA inserts at the output).
 
 Three modes:
   * pixel sharding (`shard_frame`): identical results to single-chip,
@@ -16,8 +16,7 @@ Three modes:
     rendering
   * 2D tiles x samples (`make_mesh2d` + `tile_sample_frame`): pixels
     sharded over the `px` axis, the sample sequence split over the `sp`
-    axis with a psum along it -- composes both scalings on one pod
-    slice, and the psum rides the short ICI axis
+    axis with a psum along it -- composes both scalings
 """
 
 from __future__ import annotations
@@ -27,18 +26,24 @@ from typing import Callable, Dict
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from radiance_tpu.bvh.device import DeviceScene
 from radiance_tpu.engine.pathtracer import WavefrontPathTracer
 
 
+def _shard_map(f, mesh, in_specs, out_specs):
+    # check_vma=False: the frame functions mix replicated and sharded
+    # values in ways the varying-manual-axes checker cannot follow
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
+
+
 def make_mesh(n_devices: int = None, axis: str = "px") -> Mesh:
     devices = jax.devices()
     n = n_devices or len(devices)
-    return Mesh(jax.experimental.mesh_utils.create_device_mesh(
-        (n,), devices[:n]), (axis,))
+    return Mesh(np.array(devices[:n]), (axis,))
 
 
 def shard_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
@@ -51,11 +56,10 @@ def shard_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
     """
     frame = tracer.frame_fn(batch=batch, depth=depth, debug=debug)
 
-    sharded = shard_map(
-        frame, mesh=mesh,
+    sharded = _shard_map(
+        frame, mesh,
         in_specs=(P(), P(), P(axis), P(), P(axis)),
-        out_specs=(P(axis), P(axis)),
-        check_rep=False)
+        out_specs=(P(axis), P(axis)))
     return jax.jit(sharded)
 
 
@@ -86,22 +90,20 @@ def sample_parallel_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
         rgb = merged if debug else tracer.tonemap(merged)
         return merged, tonemap_ops.quantize_rgba8(rgb)
 
-    sharded = shard_map(
-        local, mesh=mesh,
+    sharded = _shard_map(
+        local, mesh,
         in_specs=(P(), P(), P(), P(), P()),
-        out_specs=(P(), P()),
-        check_rep=False)
+        out_specs=(P(), P()))
     return jax.jit(sharded)
 
 
 def make_mesh2d(n_px: int, n_sp: int, axes=("px", "sp")) -> Mesh:
     """[n_px, n_sp] device mesh: pixel tiles over the first axis,
-    sample slices over the second.  On real hardware put the sample
-    axis on the shorter ICI dimension (it carries the psum)."""
+    sample slices over the second (the psum runs along it)."""
     devices = jax.devices()
     assert n_px * n_sp <= len(devices)
-    return Mesh(jax.experimental.mesh_utils.create_device_mesh(
-        (n_px, n_sp), devices[:n_px * n_sp]), axes)
+    return Mesh(np.array(devices[:n_px * n_sp]).reshape(n_px, n_sp),
+                axes)
 
 
 def tile_sample_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
@@ -130,93 +132,54 @@ def tile_sample_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
         rgb = merged if debug else tracer.tonemap(merged)
         return merged, tonemap_ops.quantize_rgba8(rgb)
 
-    sharded = shard_map(
-        local, mesh=mesh,
+    sharded = _shard_map(
+        local, mesh,
         in_specs=(P(), P(), P(px), P(), P(px)),
-        out_specs=(P(px), P(px)),
-        check_rep=False)
+        out_specs=(P(px), P(px)))
     return jax.jit(sharded)
 
 
 def staged_shard_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
                        batch: int, depth: int, debug: int = 0,
-                       axis: str = "px", routes="auto",
-                       hit_group_offset: int = 0,
+                       axis: str = "px", hit_group_offset: int = 0,
                        miss_group_offset: int = 0) -> Callable:
     """Pixel-sharded STAGED frame: every per-wave dispatch of the
     staged scheduler (init / primary / bounce / finish,
     engine/pathtracer._render_staged) is its own shard_mapped jit over
     the pixel axis, instead of putting the whole monolithic frame_fn
-    under one shard_map (shard_frame).
-
-    Why: the r5 SHARD1 measurement priced the monolith-under-shard_map
-    at 3.175x the unsharded monolith on one chip, while the staged
-    composition is the validated fast engine path -- multi-chip
-    scaling must shard the fast composition, not the slow one.  Rays
-    are embarrassingly parallel, so each wave shards with scene
-    replicated and zero cross-chip communication; only the caller's
-    image assembly gathers.
+    under one shard_map (shard_frame).  Rays are embarrassingly
+    parallel, so each wave shards with the scene replicated and no
+    communication between devices; only the caller's image assembly
+    gathers.  Routes follow the tracer's route table.
 
     Returns fn(scene, resources, accum [N,3], total_samples,
     pixel_index [N]) -> (accum', image u8 [N,4]), N divisible by the
-    mesh size (each shard additionally pads internally to packet
-    granularity).  routes: "auto" mirrors _render_staged's defaults
-    (stream3 primary + gen-1 live secondaries on TPU, env overrides
-    honored); or pass (primary, bounce, shadow) explicitly -- e.g.
-    (None, None, None) for the env/XLA-driven selection in CPU-mesh
-    dryruns."""
+    mesh size."""
     from radiance_tpu.engine import pathtracer as pt
 
     hit_offset = tracer.hit_offset + hit_group_offset
     miss_index = tracer.miss_index + miss_group_offset
     effective_depth = 1 if debug else depth
-    if routes == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        # scene capability is resolved per call in _render_staged; at
-        # frame-build time we only know the backend, so "auto" uses
-        # the TPU defaults and falls back to env-driven (None) off-TPU.
-        # Wave-shape-matched like _render_staged: GGX bounce waves (and
-        # their inline shadows) argsort+packet (the r4-validated
-        # scattered route), primary stream3 with gen-1 live shadows
-        # (tile-coherent origins).
-        sec = "gen1_live" if on_tpu else None
-        ggx = "argsort" if on_tpu else None
-        routes = (tracer._staged_route("primary",
-                                       "stream3" if on_tpu else None),
-                  tracer._staged_route("bounce", ggx),
-                  tracer._staged_route("shadow", sec),
-                  tracer._staged_route("shadow", ggx))
-    if len(routes) == 3:
-        primary_route, bounce_route, shadow_route = routes
-        shadow_bounce = shadow_route
-    else:
-        primary_route, bounce_route, shadow_route, shadow_bounce = \
-            routes
 
-    def shmap(f, n_state_in, out_spec):
+    def shmap(f, kind, out_spec):
         specs = {
             "init": (P(), P(axis), P(), P()),
             "step": (P(), P(), P(axis), P(), P(), P(axis)),
             "fin": (P(axis), P(axis), P()),
-        }[n_state_in]
-        return jax.jit(shard_map(
-            f, mesh=mesh, in_specs=specs, out_specs=out_spec,
-            check_rep=False))
+        }[kind]
+        return jax.jit(_shard_map(f, mesh, specs, out_spec))
+
+    def step(wave):
+        return shmap(
+            functools.partial(pt._sample_step, tracer, debug=debug,
+                              hit_offset=hit_offset,
+                              miss_index=miss_index, wave=wave),
+            "step", P(axis))
 
     j_init = shmap(functools.partial(pt._sample_init, tracer),
                    "init", P(axis))
-    j_prim = shmap(
-        functools.partial(pt._sample_step, tracer, debug=debug,
-                          hit_offset=hit_offset, miss_index=miss_index,
-                          wave="primary", route=primary_route,
-                          shadow_route=shadow_route),
-        "step", P(axis))
-    j_bounce = shmap(
-        functools.partial(pt._sample_step, tracer, debug=debug,
-                          hit_offset=hit_offset, miss_index=miss_index,
-                          wave="bounce", route=bounce_route,
-                          shadow_route=shadow_bounce),
-        "step", P(axis))
+    j_prim = step("primary")
+    j_bounce = step("bounce")
     j_fin = shmap(functools.partial(pt._finish_frame, tracer,
                                     int(batch), int(debug)),
                   "fin", (P(axis), P(axis)))

@@ -3,7 +3,7 @@
 The reference's inspector is a GLFW/OpenGL/ImGui window
 (reference: visualization/inspector.cpp:71-246 -- live texture
 upload per frame, camera/light/debug sliders, a Save button
-:234-243).  This environment has no display, so the TPU-era shape of
+:234-243).  Without a display, the shape of
 the same capability is a tiny stdlib HTTP server: the render loop
 keeps running in the main thread exactly as in `render_loop`
 (viewer.py), while a background `ThreadingHTTPServer` serves

@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock printf timing around kernel
 dispatch and BVH builds (reference: radiance.cpp:252-265, 25-49;
-sample1.cpp:457-476).  TPU equivalents: scoped wall-clock timers with
+sample1.cpp:457-476).  Equivalents here: scoped wall-clock timers with
 device synchronization, frame statistics, and jax.profiler trace capture.
 """
 

@@ -154,7 +154,7 @@ def test_make_context_single_instance_elides_gathers():
     import jax.numpy as jnp
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
-    from test_packet_trace import _single_instance_scene
+    from test_traversal import single_instance_scene as _single_instance_scene
     from radiance_tpu.engine import pathtracer
     from radiance_tpu.ops import traversal
 
@@ -185,230 +185,38 @@ def test_make_context_single_instance_elides_gathers():
 
 
 @pytest.mark.slow
-def test_engine_wave_routing_xla_matches_default(monkeypatch, tracer,
-                                                 cornell):
-    """RADIANCE_ENGINE_BOUNCE/SHADOW=xla (parked-lane per-ray walk, no
-    element compaction) must render the same image as the default
-    sort+dispatch route (identical hits; only the lane ordering inside
-    the trace differs)."""
-    a1, _ = render(tracer, cornell, batch=1, depth=3)
-    monkeypatch.setenv("RADIANCE_ENGINE_BOUNCE", "xla")
-    monkeypatch.setenv("RADIANCE_ENGINE_SHADOW", "xla")
-    sbt = ShaderBindingTable.from_json(shaders.DEFAULT_SBT_RECORDS,
-                                       shaders.SHADER_REGISTRY)
-    tracer2 = WavefrontPathTracer(
-        ray_generator=camera.physical_camera_raygen, sbt=sbt)
-    a2, _ = render(tracer2, cornell, batch=1, depth=3)
+def test_engine_wave_routing_xla_matches_default(tracer, cornell):
+    """The park-in-place dead-lane route (no element compaction) must
+    render the same image as the argsort route (identical hits; only
+    the lane ordering inside the trace differs)."""
+    import dataclasses
+    a1, _ = render(dataclasses.replace(tracer, dead_lanes="argsort"),
+                   cornell, batch=1, depth=3)
+    a2, _ = render(dataclasses.replace(tracer, dead_lanes="park"),
+                   cornell, batch=1, depth=3)
     np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.slow
-def test_temporal_bound_progressive(monkeypatch):
-    """RADIANCE_ENGINE_TBOUND=1: progressive accumulation with
-    per-block temporal t bounds (sample s's primary wave culled by
-    sample s-1's worst t, pathtracer.render) must reproduce the
-    unbounded accumulation -- across samples inside one frame AND
-    across render() calls (the cross-frame _TB carry, including the
-    total_samples==0 reset)."""
-    from radiance_tpu.scene.procedural import _quad, assemble_scene
-
-    # one MERGED mesh (single instance) so stream3.supports() holds
-    quads = [
-        _quad([-5, -5, 0], [5, -5, 0], [5, -5, -10], [-5, -5, -10]),
-        _quad([-5, 5, -10], [5, 5, -10], [5, 5, 0], [-5, 5, 0]),
-        _quad([-5, -5, -10], [5, -5, -10], [5, 5, -10], [-5, 5, -10]),
-        _quad([-5, -5, 0], [-5, -5, -10], [-5, 5, -10], [-5, 5, 0]),
-        _quad([5, -5, -10], [5, -5, 0], [5, 5, 0], [5, 5, -10]),
-    ]
-    vs, ts_, ns, uvs = [], [], [], []
-    off = 0
-    for v, t, nrm, uv in quads:
-        vs.append(v)
-        ts_.append(t + off)
-        ns.append(nrm)
-        uvs.append(uv)
-        off += len(v)
-    mesh = (np.concatenate(vs), np.concatenate(ts_).astype(np.uint32),
-            np.concatenate(ns), np.concatenate(uvs), 0)
-    mat = types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.8)
-    props = types.SceneProperties(lights=[types.DirLight(
-        direction=(0.3, -1.0, 0.4, 0.0), color=(3.0, 3.0, 3.0, 1.0))])
-    host = assemble_scene([mesh], [mat], props)
-    ds = host.device_scene()
-
-    w = h = 32
-    cam = types.PhysicalCamera(
-        width_pixel=float(w), height_pixel=float(h),
-        focal_length=0.035, sensor_width=0.05,
-        focal_distance=8.0, f_stop=0.0,
-        x=0.0, y=0.0, z=4.0, wx=0.0, wy=0.0, wz=0.0)
-    res = dict(host.resources)
-    res["camera"] = camera.camera_params(cam)
-    sbt = ShaderBindingTable.from_json(shaders.DEFAULT_SBT_RECORDS,
-                                       shaders.SHADER_REGISTRY)
-
-    monkeypatch.setenv("RADIANCE_ENGINE_STREAM3", "force")
-    monkeypatch.setenv("RADIANCE_ENGINE_BOUNCE", "xla")
-    monkeypatch.setenv("RADIANCE_ENGINE_SHADOW", "xla")
-
-    def run(tbound):
-        if tbound:
-            monkeypatch.setenv("RADIANCE_ENGINE_TBOUND", "1")
-        else:
-            monkeypatch.delenv("RADIANCE_ENGINE_TBOUND", raising=False)
-        tr = WavefrontPathTracer(
-            ray_generator=camera.physical_camera_raygen, sbt=sbt)
-        acc = jnp.zeros((w * h, 3), jnp.float32)
-        acc, _ = tr.render(ds, res, acc, 0, w, h, batch=2, depth=2)
-        acc, img = tr.render(ds, res, acc, 2, w, h, batch=2, depth=2)
-        return np.asarray(acc), np.asarray(img)
-
-    acc0, img0 = run(False)
-    assert acc0.std() > 0.01          # a real image, not a constant
-    acc1, img1 = run(True)
-    np.testing.assert_allclose(acc1, acc0, rtol=1e-4, atol=1e-5)
-    np.testing.assert_array_equal(img1, img0)
-
-
-@pytest.mark.slow
-def test_tbound_residual_overflow_rewalked(monkeypatch):
-    """An invalid temporal bound whose residual overflows the in-jit
-    cap marks rays slot=-2 (don't-trust); _traced_wavefront must
-    re-trace those rays exactly rather than bake the poisoned miss
-    into the accumulation (stale bounds after heavy motion or an
-    id-reuse collision would otherwise silently erase geometry)."""
-    import jax
-    from radiance_tpu.engine import pathtracer
-    from radiance_tpu.ops import stream3, traversal
-    from radiance_tpu.scene.procedural import _quad, assemble_scene
-
-    v, t, nrm, uv = _quad([-5, -5, -6], [5, -5, -6], [5, 5, -6],
-                          [-5, 5, -6])
-    mesh = (v, t.astype(np.uint32), nrm, uv, 0)
-    mat = types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.8)
-    ds = assemble_scene([mesh], [mat],
-                        types.SceneProperties()).device_scene()
-
-    monkeypatch.setenv("RADIANCE_ENGINE_STREAM3", "force")
-    # make the residual cap tiny so an invalid bound overflows it
-    monkeypatch.setattr(stream3, "TB_RES_RAYS", 8)
-
-    n = 1024
-    rng = np.random.default_rng(3)
-    o = np.zeros((n, 3), np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d[:, 2] = -np.abs(d[:, 2]) - 0.5          # aim at the quad
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    oj, dj = jnp.asarray(o), jnp.asarray(d)
-    alive = jnp.ones(n, bool)
-    # every block bounded FAR below the true hit t (~6): every hitting
-    # ray is a residual, overflowing the 8-ray cap massively
-    bad_bound = jnp.full((n // stream3.BLK,), 0.5, jnp.float32)
-
-    ref = traversal.trace_rays(ds, oj, dj, 1e-3, 1e3)
-    got = jax.jit(lambda o_, d_, a_, bb: pathtracer._traced_wavefront(
-        ds, o_, d_, 1e-3, 1e3, a_, blk_bound=bb))(oj, dj, alive,
-                                                  bad_bound)
-    t_ref = np.asarray(ref.t)
-    hr = t_ref < np.float32(3.4e38)
-    assert hr.sum() > 100
-    t_got = np.asarray(got.t)
-    assert ((t_got < np.float32(3.4e38)) == hr).all()
-    np.testing.assert_allclose(t_got[hr], t_ref[hr], rtol=2e-3,
-                               atol=1e-4)
-    assert (np.asarray(got.slot) >= -1).all()
-
-
-@pytest.mark.slow
-def test_tbound_store_is_per_tracer(monkeypatch):
-    """Two tracers rendering the same scene/resolution with DIFFERENT
-    cameras must not share temporal bounds: each tracer's bounded
-    progressive accumulation must match its own unbounded reference
-    (a class-level bound store would cross-contaminate them)."""
-    from radiance_tpu.scene.procedural import _quad, assemble_scene
-
-    v, t, nrm, uv = _quad([-6, -6, -8], [6, -6, -8], [6, 6, -8],
-                          [-6, 6, -8])
-    mesh = (v, t.astype(np.uint32), nrm, uv, 0)
-    mat = types.Material(albedo=(0.7, 0.7, 0.7, 1.0), roughness=0.8)
-    props = types.SceneProperties(lights=[types.DirLight(
-        direction=(0.3, -1.0, 0.4, 0.0), color=(3.0, 3.0, 3.0, 1.0))])
-    host = assemble_scene([mesh], [mat], props)
-    ds = host.device_scene()
-
-    w = h = 16
-    sbt = ShaderBindingTable.from_json(shaders.DEFAULT_SBT_RECORDS,
-                                       shaders.SHADER_REGISTRY)
-
-    def cam_res(z):
-        cam = types.PhysicalCamera(
-            width_pixel=float(w), height_pixel=float(h),
-            focal_length=0.035, sensor_width=0.05,
-            focal_distance=8.0, f_stop=0.0,
-            x=0.0, y=0.0, z=z, wx=0.0, wy=0.0, wz=0.0)
-        res = dict(host.resources)
-        res["camera"] = camera.camera_params(cam)
-        return res
-
-    monkeypatch.setenv("RADIANCE_ENGINE_STREAM3", "force")
-    monkeypatch.setenv("RADIANCE_ENGINE_BOUNCE", "xla")
-    monkeypatch.setenv("RADIANCE_ENGINE_SHADOW", "xla")
-
-    def make():
-        return WavefrontPathTracer(
-            ray_generator=camera.physical_camera_raygen, sbt=sbt)
-
-    def ref_run(z):
-        monkeypatch.delenv("RADIANCE_ENGINE_TBOUND", raising=False)
-        tr = make()
-        acc = jnp.zeros((w * h, 3), jnp.float32)
-        acc, _ = tr.render(ds, cam_res(z), acc, 0, w, h,
-                           batch=2, depth=2)
-        acc, _ = tr.render(ds, cam_res(z), acc, 2, w, h,
-                           batch=2, depth=2)
-        return np.asarray(acc)
-
-    ref_a, ref_b = ref_run(4.0), ref_run(-1.0)
-    assert np.abs(ref_a - ref_b).max() > 1e-3   # cameras really differ
-
-    monkeypatch.setenv("RADIANCE_ENGINE_TBOUND", "1")
-    tr_a, tr_b = make(), make()
-    acc_a = jnp.zeros((w * h, 3), jnp.float32)
-    acc_b = jnp.zeros((w * h, 3), jnp.float32)
-    # interleave so each render sees whatever the other stored last
-    acc_a, _ = tr_a.render(ds, cam_res(4.0), acc_a, 0, w, h,
-                           batch=2, depth=2)
-    acc_b, _ = tr_b.render(ds, cam_res(-1.0), acc_b, 0, w, h,
-                           batch=2, depth=2)
-    acc_a, _ = tr_a.render(ds, cam_res(4.0), acc_a, 2, w, h,
-                           batch=2, depth=2)
-    acc_b, _ = tr_b.render(ds, cam_res(-1.0), acc_b, 2, w, h,
-                           batch=2, depth=2)
-    np.testing.assert_allclose(np.asarray(acc_a), ref_a,
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(acc_b), ref_b,
-                               rtol=1e-4, atol=1e-5)
-
-
-def test_staged_matches_monolith(tracer, cornell, monkeypatch):
+def test_staged_matches_monolith(tracer, cornell):
     """The staged per-wave scheduler (_render_staged) and the
     monolithic jitted frame must produce identical frames: same
-    _sample_step math, different dispatch granularity.  On CPU both
-    use the same env-driven wave routes, so any difference would be a
-    scheduling bug (sample/bounce chaining, accumulation epilogue)."""
+    _sample_step math and wave routes, different dispatch
+    granularity, so any difference would be a scheduling bug
+    (sample/bounce chaining, accumulation epilogue)."""
+    import dataclasses
     res = make_resources(cornell)
     scene = cornell.device_scene()
     accum0 = jnp.zeros((W * H, 3), jnp.float32)
 
-    monkeypatch.setenv("RADIANCE_ENGINE_STAGED", "0")
+    tracer = dataclasses.replace(tracer, scheduler="monolith")
     a_mono, img_mono = tracer.render(scene, res, accum0, 0, W, H,
                                      batch=2, depth=2)
     # second frame exercises the nonzero-total_samples running average
     a_mono2, img_mono2 = tracer.render(scene, res, a_mono, 2, W, H,
                                        batch=2, depth=2)
 
-    monkeypatch.setenv("RADIANCE_ENGINE_STAGED", "1")
+    tracer = dataclasses.replace(tracer, scheduler="staged")
     a_st, img_st = tracer.render(scene, res, accum0, 0, W, H,
                                  batch=2, depth=2)
     a_st2, img_st2 = tracer.render(scene, res, a_st, 2, W, H,

@@ -23,11 +23,10 @@ import sys
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, _HERE)                          # test_golden helpers
 sys.path.insert(0, os.path.join(_HERE, os.pardir, "samples"))
 
-from test_golden import (F32, OracleScene, cross, dot, microfacet_brdf,
-                         normalize, pcg3d)
+from radiance_tpu.engine.frame_oracle import (
+    F32, OracleScene, cross, dot, microfacet_brdf, normalize, pcg3d)
 
 
 # ---------------------------------------------------------- sample0

@@ -36,6 +36,16 @@ def world_soup(instances):
             np.asarray(e2s, np.float32), np.asarray(prims), np.asarray(inst_ids))
 
 
+def single_instance_scene(n_tris=300, seed=10, transform=None):
+    rng = np.random.default_rng(seed)
+    mesh = random_mesh(rng, n_tris, spread=5.0)
+    blas = accel.BuildBottomAccelStruct(mesh)
+    tf = np.eye(4, dtype=np.float32) if transform is None else transform
+    inst = types.Instance(transform=tf, sbt_offset=0,
+                          custom_instance_id=0, bottom_accel_struct=blas)
+    return accel.BuildTopAccelStruct([inst]).device_scene()
+
+
 def gen_rays(rng, n, spread=12.0):
     o = rng.uniform(-spread, spread, size=(n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
