@@ -138,7 +138,6 @@ def run_engine(dev):
     emit({"metric": "engine_ms_per_frame_1Mtri_1080p", "value": dt * 1e3,
           "unit": "ms", "batch": batch, "depth": depth,
           "compile_plus_first_frame_s": compile_s,
-          "scheduler": tracer.scheduler, "dead_lanes": tracer.dead_lanes,
           "accum_mean": float(jnp.mean(state["accum"]))}, dev)
 
 
@@ -303,7 +302,10 @@ def main(argv):
     modes = [a for a in argv if a in MODES]
     unknown = [a for a in argv if a not in MODES]
     if unknown or len(modes) > 1:
-        print(f"usage: bench.py [{'|'.join(MODES)}]", file=sys.stderr)
+        what = (f"unknown mode {' '.join(unknown)}" if unknown
+                else "one mode at a time")
+        print(f"bench.py: {what}; usage: bench.py [{'|'.join(MODES)}]",
+              file=sys.stderr)
         return 2
     dev = device_fields()
     (MODES[modes[0]] if modes else run_waves)(dev)

@@ -2,7 +2,6 @@
 """Chip smoke: drive the wavefront path tracer's main path once on a GPU.
 
     python chip_smoke.py            # one card: phases (a)-(e)
-    python chip_smoke.py --ab       # ... plus the scheduler x dead-lane A/B
     python chip_smoke.py --multi    # four cards: sharded frames only
 
 Phases, each printing its own lines:
@@ -12,8 +11,7 @@ Phases, each printing its own lines:
                 XLA walk against chunked brute force on the card
   (d) engine    Cornell frame at 64^2 against the NumPy frame oracle
   (e) frame     WavefrontPathTracer.render at 1080p, batch 4, depth 4
-  (f) --ab      both schedulers x both dead-lane routes on one frame
-  (g) --multi   pixel sharding and sample parallelism on a 4-card mesh
+  (f) --multi   pixel sharding and sample parallelism on a 4-card mesh
                 against the one-card frame
 
 The last line of stdout is one JSON object naming the device.  The
@@ -347,13 +345,12 @@ def check_accum(accum, what: str):
     return a
 
 
-def phase_frame(scene, verts, tris, w, h, batch=4, depth=4, frames=3,
-                **tracer_kw):
+def phase_frame(scene, verts, tris, w, h, batch=4, depth=4, frames=3):
     """(e): the full-size frame through WavefrontPathTracer.render."""
     import jax
     from radiance_tpu.scene import bench_scenes
 
-    tracer, res = bench_scenes.engine_setup(verts, tris, w, h, **tracer_kw)
+    tracer, res = bench_scenes.engine_setup(verts, tris, w, h)
     compile_s, times, accum = time_frames(tracer, scene, res, w, h,
                                           batch=batch, depth=depth,
                                           frames=frames)
@@ -361,7 +358,6 @@ def phase_frame(scene, verts, tris, w, h, batch=4, depth=4, frames=3,
     stats = jax.devices()[0].memory_stats() or {}
     peak = stats.get("peak_bytes_in_use")
     log(f"[e] frame city {w}x{h} batch={batch} depth={depth} "
-        f"scheduler={tracer.scheduler} dead_lanes={tracer.dead_lanes} "
         f"compile_plus_first_frame_s={compile_s:.2f} (set-up) "
         f"frame_ms_median={1e3 * float(np.median(times)):.1f} "
         f"frame_ms={[round(1e3 * t, 1) for t in times]} "
@@ -370,38 +366,8 @@ def phase_frame(scene, verts, tris, w, h, batch=4, depth=4, frames=3,
     return {"compile_s": compile_s, "frame_s": times, "peak": peak}
 
 
-def phase_ab(scene, verts, tris, w, h, batch=4, depth=4, frames=3):
-    """(f): every scheduler x dead-lane route on the same frame, in one
-    process; the outputs must agree."""
-    from radiance_tpu.engine.pathtracer import LANE_ROUTES, SCHEDULERS
-    from radiance_tpu.scene import bench_scenes
-
-    ref = None
-    out = {}
-    for sched in SCHEDULERS:
-        for lanes in LANE_ROUTES:
-            tracer, res = bench_scenes.engine_setup(
-                verts, tris, w, h, scheduler=sched, dead_lanes=lanes)
-            compile_s, times, accum = time_frames(
-                tracer, scene, res, w, h, batch=batch, depth=depth,
-                frames=frames)
-            a = check_accum(accum, f"ab {sched}/{lanes}")
-            diff = 0.0 if ref is None else float(np.abs(a - ref).max())
-            ref = a if ref is None else ref
-            med = float(np.median(times))
-            out[(sched, lanes)] = med
-            log(f"[f] ab scheduler={sched} dead_lanes={lanes} "
-                f"compile_plus_first_frame_s={compile_s:.2f} "
-                f"frame_ms_median={1e3 * med:.1f} "
-                f"frame_ms={[round(1e3 * t, 1) for t in times]} "
-                f"max_abs_diff_vs_first={diff:.3e}")
-    best = min(out, key=out.get)
-    log(f"[f] ab fastest scheduler={best[0]} dead_lanes={best[1]}")
-    return out
-
-
 def phase_multi(scene, verts, tris, w, h, batch=1, depth=4, n_dev=4):
-    """(g): pixel sharding (monolith and staged) and sample parallelism
+    """(f): pixel sharding (whole frame and per wave) and sample parallelism
     on an n_dev mesh against one-card frames."""
     import jax
     import jax.numpy as jnp
@@ -428,7 +394,7 @@ def phase_multi(scene, verts, tris, w, h, batch=1, depth=4, n_dev=4):
     (one, _), c1, t1 = timed(lambda: tracer.render(
         scene, res, acc0, 0, w, h, batch=batch, depth=depth))
     one = check_accum(one, "one-card frame")
-    log(f"[g] one-card {w}x{h} batch={batch} depth={depth} "
+    log(f"[f] one-card {w}x{h} batch={batch} depth={depth} "
         f"first_s={c1:.2f} frame_ms={1e3 * t1:.1f}")
     fails = []
     for name, make in (("shard_frame", sharding.shard_frame),
@@ -439,7 +405,7 @@ def phase_multi(scene, verts, tris, w, h, batch=1, depth=4, n_dev=4):
         a = check_accum(acc, name)
         diff = np.abs(a - one)
         px_diff = float((diff.max(axis=-1) > 1e-3).mean())
-        log(f"[g] {name} devices={n_dev} first_s={c:.2f} "
+        log(f"[f] {name} devices={n_dev} first_s={c:.2f} "
             f"frame_ms={1e3 * t:.1f} max_abs_diff={diff.max():.3e} "
             f"frac_pixels_diff_gt_1e-3={px_diff:.2e}")
         if px_diff > 1e-3:
@@ -454,7 +420,7 @@ def phase_multi(scene, verts, tris, w, h, batch=1, depth=4, n_dev=4):
     a = check_accum(acc, "sample_parallel_frame")
     rmse = float(np.sqrt(np.mean((a - ref4) ** 2)))
     rel = rmse / float(np.sqrt(np.mean(ref4 ** 2)))
-    log(f"[g] sample_parallel_frame devices={n_dev} first_s={c:.2f} "
+    log(f"[f] sample_parallel_frame devices={n_dev} first_s={c:.2f} "
         f"frame_ms={1e3 * t:.1f} rmse_vs_one_card_batch{n_dev * batch}="
         f"{rmse:.3e} relative={rel:.3e}")
     if rel > 1e-3:
@@ -465,8 +431,6 @@ def phase_multi(scene, verts, tris, w, h, batch=1, depth=4, n_dev=4):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ab", action="store_true",
-                    help="also run the scheduler x dead-lane A/B")
     ap.add_argument("--multi", action="store_true",
                     help="run only the 4-card sharded frames")
     ap.add_argument("--tris", type=int, default=1_000_000)
@@ -489,8 +453,6 @@ def main(argv=None) -> int:
         phase_traversal(scene, verts, tris, w, h)
         phase_engine(64)
         phase_frame(scene, verts, tris, w, h)
-        if args.ab:
-            phase_ab(scene, verts, tris, w, h)
     log(f"[z] wall_s={time.perf_counter() - t_all:.1f}")
     log(card)
     print(json.dumps({"ok": True, "device": {

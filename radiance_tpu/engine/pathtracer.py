@@ -8,7 +8,7 @@ with a fully-jitted wavefront frame function:
     generate rays for every pixel (PCG3D-jittered)
     for each bounce (lax.while_loop, exits when every path has died):
       trace the live rays through the stackless XLA walk
-        (ops/traversal.py), dead lanes parked in place or compacted
+        (ops/traversal.py), dead lanes compacted out of the way
       SBT-dispatched shading (shaders may trace occlusion rays inline;
         empty dispatches skipped via lax.cond)
       accumulate color / update throughput exactly like shader.cl:233-260
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 from typing import Callable, Dict
 
 import jax
@@ -45,52 +44,6 @@ from radiance_tpu.ops.intersect import FLT_MAX
 # chunk's while_loop tail.
 _PARK_ORIGIN = 1e30
 
-# ---- route table ---------------------------------------------------
-# Every wave of every scene kind (single- or multi-instance, with or
-# without a custom any-hit program) traces through the XLA walk.  What a
-# route chooses is how the wave's dead lanes are treated:
-#   "park"    -- dead lanes start at _PARK_ORIGIN and retire on their
-#                first node step; rays keep pixel order.
-#   "argsort" -- live rays are sorted to the front by a coherence key
-#                (direction octant, origin Morton code), dead lanes are
-#                parked at the back, and hits are scattered back.
-# The primary wave has no dead lanes and arrives in coherent pixel
-# order, so it always parks; bounce and shadow waves take the tracer's
-# `dead_lanes` choice.
-WAVES = ("primary", "bounce", "shadow")
-LANE_ROUTES = ("park", "argsort")
-SCHEDULERS = ("monolith", "staged")
-# Routes of the removed Pallas kernel stack: naming one is an error, never
-# a silent fallback.
-REMOVED_ROUTES = frozenset({"stream3", "gen1_live", "gen1_sort", "packet",
-                            "tlas_native", "multi"})
-# Environment knobs (names or prefixes) that selected or tuned those
-# routes: a process that sets one asks for something this engine no
-# longer does.
-REMOVED_ENV = ("RADIANCE_ENGINE_", "RADIANCE_GEN1_", "RADIANCE_ISECT_",
-               "RADIANCE_COLLAPSE", "RADIANCE_BENCH_PRECISION",
-               "RADIANCE_LEAF_CAP", "RADIANCE_TQ_BITS",
-               "RADIANCE_STABLE_FRAMES", "RADIANCE_TREELET", "RADIANCE_WS",
-               "RADIANCE_PREP_KERNEL", "RADIANCE_VMEM_MB")
-
-
-def check_choice(kind: str, value: str, allowed) -> None:
-    if value in REMOVED_ROUTES:
-        raise ValueError(
-            f"{kind} {value!r} was a kernel route that has been "
-            f"removed; choose one of {tuple(allowed)}")
-    if value not in allowed:
-        raise ValueError(f"unknown {kind} {value!r}; choose one of "
-                         f"{tuple(allowed)}")
-
-
-def wave_route(wave: str, dead_lanes: str) -> str:
-    """The route a wave traces through (see the route table above)."""
-    check_choice("wave", wave, WAVES)
-    check_choice("dead-lane route", dead_lanes, LANE_ROUTES)
-    return "park" if wave == "primary" else dead_lanes
-
-
 def _masked_record(rec, alive):
     miss = ~alive
     return traversal.HitRecord(
@@ -101,24 +54,18 @@ def _masked_record(rec, alive):
         b2=jnp.where(miss, 0.0, rec.b2))
 
 
-def _traced_wavefront(scene, o, d, tmin, tmax, alive, route="argsort",
-                      **trace_kw):
+def _traced_wavefront(scene, o, d, tmin, tmax, alive, **trace_kw):
     """Trace only the live rays of a wave (SURVEY 7: generate ->
     traverse -> shade -> compact) and report dead lanes as misses.
 
-    route "park": dead lanes are parked at _PARK_ORIGIN in place.
-    route "argsort": live rays are permuted to the front (grouped by
-    compaction.coherence_key), dead lanes are parked behind them, and
-    the HitRecord is scattered back to pixel order.
+    Live rays are permuted to the front (grouped by
+    compaction.coherence_key), dead lanes are parked behind them at
+    _PARK_ORIGIN, and the HitRecord is scattered back to pixel order.
     Under chunked traversal (ops/traversal lax.map) trailing all-dead
-    chunks retire in one iteration.
+    chunks retire in one iteration.  Sorting beats parking dead lanes in
+    place on the H100 (PERF.md): parked lanes spread over every chunk,
+    so every chunk's walk runs to its slowest live ray.
     """
-    check_choice("dead-lane route", route, LANE_ROUTES)
-    if route == "park":
-        o_c = jnp.where(alive[:, None], o, _PARK_ORIGIN)
-        d_c = jnp.where(alive[:, None], d, 1.0)
-        rec = traversal.trace_rays(scene, o_c, d_c, tmin, tmax, **trace_kw)
-        return _masked_record(rec, alive)
     key = jnp.where(alive, compaction.coherence_key(o, d),
                     jnp.int32(2 ** 31 - 1))
     perm = jnp.argsort(key, stable=True).astype(jnp.int32)
@@ -133,17 +80,16 @@ def _traced_wavefront(scene, o, d, tmin, tmax, alive, route="argsort",
 
 def _sample_step(tracer, scene, resources, pixel_index, frame_id, b,
                  state, *, debug, hit_offset, miss_index,
-                 wave="bounce"):
+                 primary=False):
     """One engine wave: closest-hit trace, SBT shading (shaders may
     trace occlusion rays inline), color/throughput/alive update --
     shader.cl:233-260's per-bounce body in wavefront form.  Shared by
-    the monolithic frame function (frame_fn, everything in one jit)
-    and the staged per-wave scheduler (_render_staged, one jit per
-    wave); same math, different dispatch granularity.
+    the frame function (frame_fn) and the per-wave sharded frame
+    (parallel/sharding.staged_shard_frame).
 
-    wave names the closest-hit wave ("primary" or "bounce"); occlusion
-    rays traced inside its shading form the "shadow" wave.  Each takes
-    its route from the route table (wave_route)."""
+    The primary wave has no dead lanes and arrives in coherent pixel
+    order, so it traces as it is; bounce waves and the shadow rays
+    their shaders trace are compacted (_traced_wavefront)."""
     sbt = tracer.sbt
     color, contribution, alive, o, d = state
     n = pixel_index.shape[0]
@@ -163,7 +109,7 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b,
         else:
             rec = _traced_wavefront(
                 scene_, origin, direction, tmin, tmax, active,
-                route=wave_route("shadow", tracer.dead_lanes), **kw)
+                **kw)
         return rec.hit
 
     occl = functools.partial(trace_occlusion, scene,
@@ -172,10 +118,12 @@ def _sample_step(tracer, scene, resources, pixel_index, frame_id, b,
     full = functools.partial(traversal.trace_rays, scene)
     hit_anyhit = sbt.make_any_hit_program(hit_offset, resources)
 
-    hits = _traced_wavefront(scene, o, d, tracer.tmin, tracer.tmax,
-                             alive,
-                             route=wave_route(wave, tracer.dead_lanes),
-                             any_hit_program=hit_anyhit)
+    if primary:
+        hits = traversal.trace_rays(scene, o, d, tracer.tmin, tracer.tmax,
+                                    any_hit_program=hit_anyhit)
+    else:
+        hits = _traced_wavefront(scene, o, d, tracer.tmin, tracer.tmax,
+                                 alive, any_hit_program=hit_anyhit)
     ctx = _make_context(scene, hits, o, d, pixel_index, frame_id, b,
                         resources, debug, occl, full)
     payload = Payload(
@@ -226,7 +174,7 @@ def _sample_init(tracer, resources, pixel_index, frame_id,
 
 def _finish_frame(tracer, batch, debug, accum, colors, total_samples):
     """Running-average + tonemap + quantize (shader.cl:262-305); the
-    epilogue of both schedulers."""
+    epilogue of every frame function."""
     f = total_samples.astype(jnp.float32)
     accum = (f * accum + colors) / (f + jnp.float32(batch))
     rgb = accum
@@ -298,11 +246,6 @@ class WavefrontPathTracer:
       shader.cl:235 and :500; samples configure them here)
     tonemap: float rgb -> float rgb display transform
     tmin/tmax: traceRay accept window (shader.cl:236)
-    scheduler: "monolith" (one jitted program per dispatch of up to
-      max_batch_per_dispatch samples) or "staged" (one jitted program
-      per wave, chained from the host); identical math
-    dead_lanes: route of the bounce and shadow waves, "park" or
-      "argsort" (see the route table)
     """
     ray_generator: Callable
     sbt: ShaderBindingTable
@@ -312,18 +255,6 @@ class WavefrontPathTracer:
     shadow_hit_offset: int = 2  # shadow-ray SBT offset (shader.cl:500)
     tmin: float = 0.001
     tmax: float = 1000.0
-    scheduler: str = "monolith"
-    dead_lanes: str = "argsort"
-
-    def __post_init__(self):
-        check_choice("scheduler", self.scheduler, SCHEDULERS)
-        check_choice("dead-lane route", self.dead_lanes, LANE_ROUTES)
-        stale = sorted(k for k in os.environ if k.startswith(REMOVED_ENV))
-        if stale:
-            raise ValueError(
-                f"{', '.join(stale)} selected kernel routes that have "
-                f"been removed; unset them (the tracer's scheduler and "
-                f"dead_lanes fields choose among what remains)")
 
     def frame_fn(self, *, batch: int, depth: int, debug: int = 0,
                  hit_group_offset: int = 0, miss_group_offset: int = 0):
@@ -342,19 +273,19 @@ class WavefrontPathTracer:
 
         def one_sample(scene, resources, pixel_index, frame_id,
                        total_samples0):
-            def bounce(b, st, wave="bounce"):
+            def bounce(b, st, primary=False):
                 return _sample_step(self, scene, resources,
                                     pixel_index, frame_id, b, st,
                                     debug=debug, hit_offset=hit_offset,
-                                    miss_index=miss_index, wave=wave)
+                                    miss_index=miss_index, primary=primary)
 
             init = _sample_init(self, resources, pixel_index, frame_id,
                                 total_samples0)
             if effective_depth < 1:
                 return init[0]
-            # the primary wave is unrolled out of the loop: its route
-            # (see wave_route) differs statically from the bounces'
-            st1 = bounce(jnp.int32(0), init, wave="primary")
+            # the primary wave is unrolled out of the loop: it traces
+            # uncompacted (see _sample_step)
+            st1 = bounce(jnp.int32(0), init, primary=True)
 
             # bounce loop with early exit: when every path has died, the
             # remaining bounces are skipped entirely (the reference's
@@ -410,57 +341,6 @@ class WavefrontPathTracer:
     # with no semantic difference -- the running average composes exactly.
     max_batch_per_dispatch: int = 8
 
-    # ---- staged frame scheduler -------------------------------------
-    # One jitted dispatch PER WAVE (trace + shade + inline occlusion),
-    # chained asynchronously from the host -- no mid-frame host sync, so
-    # dispatch latency pipelines away.  Staged waves reuse _sample_step,
-    # so the math is identical to the monolith.
-
-    @functools.lru_cache(maxsize=None)
-    def _staged_init_jit(self):
-        return jax.jit(functools.partial(_sample_init, self))
-
-    @functools.lru_cache(maxsize=None)
-    def _staged_step_jit(self, debug, hit_offset, miss_index, wave):
-        return jax.jit(functools.partial(
-            _sample_step, self, debug=debug, hit_offset=hit_offset,
-            miss_index=miss_index, wave=wave))
-
-    @functools.lru_cache(maxsize=None)
-    def _staged_finish_jit(self, batch, debug):
-        return jax.jit(functools.partial(_finish_frame, self, batch,
-                                         debug))
-
-    def _render_staged(self, scene, resources, accum, total_samples,
-                       width, height, *, batch, depth, debug,
-                       hit_group_offset, miss_group_offset):
-        n = width * height
-        pixel_index = jnp.arange(n, dtype=jnp.int32)
-        hit_offset = self.hit_offset + hit_group_offset
-        miss_index = self.miss_index + miss_group_offset
-        effective_depth = 1 if debug else depth
-        j_init = self._staged_init_jit()
-        j_prim = self._staged_step_jit(debug, hit_offset, miss_index,
-                                       "primary")
-        j_bounce = self._staged_step_jit(debug, hit_offset, miss_index,
-                                         "bounce")
-        j_fin = self._staged_finish_jit(int(batch), int(debug))
-
-        ts0 = jnp.uint32(total_samples)
-        colors = jnp.zeros((n, 3), jnp.float32)
-        for s in range(int(batch)):
-            fid = jnp.uint32(int(total_samples) + s)
-            state = j_init(resources, pixel_index, fid, ts0)
-            if effective_depth >= 1:
-                state = j_prim(scene, resources, pixel_index, fid,
-                               jnp.int32(0), state)
-                for b in range(1, effective_depth):
-                    state = j_bounce(scene, resources, pixel_index,
-                                     fid, jnp.int32(b), state)
-            colors = colors + state[0]
-        accum, image = j_fin(accum, colors, ts0)
-        return accum, image.reshape(height, width, 4)
-
     def render(self, scene: DeviceScene, resources: Dict, accum,
                total_samples: int, width: int, height: int,
                *, batch: int, depth: int, debug: int = 0,
@@ -469,12 +349,6 @@ class WavefrontPathTracer:
 
         The reference host loop updates totalSamples += batchSize between
         frames (sample1.cpp:479-490); callers own that counter."""
-        if self.scheduler == "staged":
-            return self._render_staged(
-                scene, resources, accum, total_samples, width, height,
-                batch=batch, depth=depth, debug=debug,
-                hit_group_offset=hit_group_offset,
-                miss_group_offset=miss_group_offset)
         n = width * height
         pixel_index = jnp.arange(n, dtype=jnp.int32)
         remaining = int(batch)

@@ -143,14 +143,12 @@ def staged_shard_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
                        batch: int, depth: int, debug: int = 0,
                        axis: str = "px", hit_group_offset: int = 0,
                        miss_group_offset: int = 0) -> Callable:
-    """Pixel-sharded STAGED frame: every per-wave dispatch of the
-    staged scheduler (init / primary / bounce / finish,
-    engine/pathtracer._render_staged) is its own shard_mapped jit over
-    the pixel axis, instead of putting the whole monolithic frame_fn
-    under one shard_map (shard_frame).  Rays are embarrassingly
-    parallel, so each wave shards with the scene replicated and no
-    communication between devices; only the caller's image assembly
-    gathers.  Routes follow the tracer's route table.
+    """Pixel-sharded frame in stages: every wave (init / primary /
+    bounce / finish) is its own shard_mapped jit over the pixel axis,
+    chained from the host, instead of putting the whole frame_fn under
+    one shard_map (shard_frame).  Rays are embarrassingly parallel, so
+    each wave shards with the scene replicated and no communication
+    between devices; only the caller's image assembly gathers.
 
     Returns fn(scene, resources, accum [N,3], total_samples,
     pixel_index [N]) -> (accum', image u8 [N,4]), N divisible by the
@@ -169,17 +167,17 @@ def staged_shard_frame(tracer: WavefrontPathTracer, mesh: Mesh, *,
         }[kind]
         return jax.jit(_shard_map(f, mesh, specs, out_spec))
 
-    def step(wave):
+    def step(primary):
         return shmap(
             functools.partial(pt._sample_step, tracer, debug=debug,
                               hit_offset=hit_offset,
-                              miss_index=miss_index, wave=wave),
+                              miss_index=miss_index, primary=primary),
             "step", P(axis))
 
     j_init = shmap(functools.partial(pt._sample_init, tracer),
                    "init", P(axis))
-    j_prim = step("primary")
-    j_bounce = step("bounce")
+    j_prim = step(True)
+    j_bounce = step(False)
     j_fin = shmap(functools.partial(pt._finish_frame, tracer,
                                     int(batch), int(debug)),
                   "fin", (P(axis), P(axis)))

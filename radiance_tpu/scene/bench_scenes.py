@@ -107,10 +107,10 @@ def light_vec(kind: str = "city") -> np.ndarray:
 
 def engine_setup(verts, tris, width: int, height: int, *,
                  f_stop: float = 0.0, focal_length: float = 0.035,
-                 focal_distance: float = 80.0, **tracer_kw):
+                 focal_distance: float = 80.0):
     """(WavefrontPathTracer, resource bindings) for a bench mesh seen
     by the bench camera: one grey GGX material, face normals, one
-    directional light.  tracer_kw goes to WavefrontPathTracer."""
+    directional light."""
     from radiance_tpu.api.sbt import ShaderBindingTable
     from radiance_tpu.core import types
     from radiance_tpu.engine import shaders
@@ -121,7 +121,7 @@ def engine_setup(verts, tris, width: int, height: int, *,
     sbt = ShaderBindingTable.from_json(shaders.DEFAULT_SBT_RECORDS,
                                        shaders.SHADER_REGISTRY)
     tracer = WavefrontPathTracer(
-        ray_generator=camera.physical_camera_raygen, sbt=sbt, **tracer_kw)
+        ray_generator=camera.physical_camera_raygen, sbt=sbt)
     cam = types.PhysicalCamera(
         width_pixel=float(width), height_pixel=float(height),
         focal_length=focal_length, sensor_width=0.05,

@@ -60,6 +60,26 @@ def test_bench_refuses_cpu(tmp_path):
     assert out.stdout.strip() == ""
 
 
+@pytest.mark.parametrize("mode", ["--multi", "--tbound", "--ab"])
+def test_removed_modes_are_refused_by_name(mode, tmp_path, capsys):
+    """Modes of the removed kernel stack and its A/B are not silently
+    ignored: bench.py names them and exits non-zero before touching a
+    device; chip_smoke.py rejects them as unknown options."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, os.path.join(REPO, "bench.py"),
+                          mode], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert f"unknown mode {mode}" in out.stderr
+    assert out.stdout.strip() == ""
+    if mode == "--multi":       # still a chip_smoke option
+        return
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.main([mode])
+    assert e.value.code != 0
+    assert mode in capsys.readouterr().err
+
+
 def _clean():
     rng = np.random.default_rng(0)
     t = rng.uniform(1, 100, 1000).astype(np.float32)
@@ -139,8 +159,7 @@ def test_last_line_shape(monkeypatch, capsys):
     calls = []
     monkeypatch.setattr(chip_smoke, "phase_scene",
                         lambda n: (calls.append("b") or (None, None, None)))
-    for name in ("phase_traversal", "phase_frame", "phase_ab",
-                 "phase_multi"):
+    for name in ("phase_traversal", "phase_frame", "phase_multi"):
         monkeypatch.setattr(chip_smoke, name,
                             lambda *a, _n=name, **k: calls.append(_n))
     monkeypatch.setattr(chip_smoke, "phase_engine",

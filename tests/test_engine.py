@@ -184,47 +184,19 @@ def test_make_context_single_instance_elides_gathers():
                                   np.asarray(ds.inst_sbt[slot]))
 
 
-@pytest.mark.slow
-def test_engine_wave_routing_xla_matches_default(tracer, cornell):
-    """The park-in-place dead-lane route (no element compaction) must
-    render the same image as the argsort route (identical hits; only
-    the lane ordering inside the trace differs)."""
+def test_progressive_frames_compose(tracer, cornell):
+    """A batch larger than max_batch_per_dispatch is split over
+    dispatches that compose exactly like progressive frames: a batch-4
+    render in dispatches of 2 samples is the pair of batch-2 frames at
+    totalSamples 0 and 2 (the seeds include totalSamples, as in the
+    reference, so it is not the single batch-4 dispatch)."""
     import dataclasses
-    a1, _ = render(dataclasses.replace(tracer, dead_lanes="argsort"),
-                   cornell, batch=1, depth=3)
-    a2, _ = render(dataclasses.replace(tracer, dead_lanes="park"),
-                   cornell, batch=1, depth=3)
-    np.testing.assert_allclose(np.asarray(a1), np.asarray(a2),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_staged_matches_monolith(tracer, cornell):
-    """The staged per-wave scheduler (_render_staged) and the
-    monolithic jitted frame must produce identical frames: same
-    _sample_step math and wave routes, different dispatch
-    granularity, so any difference would be a scheduling bug
-    (sample/bounce chaining, accumulation epilogue)."""
-    import dataclasses
-    res = make_resources(cornell)
-    scene = cornell.device_scene()
-    accum0 = jnp.zeros((W * H, 3), jnp.float32)
-
-    tracer = dataclasses.replace(tracer, scheduler="monolith")
-    a_mono, img_mono = tracer.render(scene, res, accum0, 0, W, H,
-                                     batch=2, depth=2)
-    # second frame exercises the nonzero-total_samples running average
-    a_mono2, img_mono2 = tracer.render(scene, res, a_mono, 2, W, H,
-                                       batch=2, depth=2)
-
-    tracer = dataclasses.replace(tracer, scheduler="staged")
-    a_st, img_st = tracer.render(scene, res, accum0, 0, W, H,
-                                 batch=2, depth=2)
-    a_st2, img_st2 = tracer.render(scene, res, a_st, 2, W, H,
-                                   batch=2, depth=2)
-
-    np.testing.assert_allclose(np.asarray(a_st), np.asarray(a_mono),
-                               rtol=1e-5, atol=1e-6)
-    assert (np.asarray(img_st) == np.asarray(img_mono)).all()
-    np.testing.assert_allclose(np.asarray(a_st2), np.asarray(a_mono2),
-                               rtol=1e-5, atol=1e-6)
-    assert (np.asarray(img_st2) == np.asarray(img_mono2)).all()
+    a2, _ = render(tracer, cornell, batch=2, depth=2)
+    a22, img22 = render(tracer, cornell, batch=2, depth=2,
+                        total_samples=2, accum=a2)
+    split = dataclasses.replace(tracer, max_batch_per_dispatch=2)
+    a_sp, img_sp = render(split, cornell, batch=4, depth=2)
+    np.testing.assert_array_equal(np.asarray(a_sp), np.asarray(a22))
+    np.testing.assert_array_equal(np.asarray(img_sp), np.asarray(img22))
+    a4, _ = render(tracer, cornell, batch=4, depth=2)
+    assert not np.allclose(np.asarray(a4), np.asarray(a22))

@@ -1,8 +1,10 @@
-"""Route table, engine configuration and compile-cache placement.
+"""Wave tracing in the engine, the traced path's arithmetic, and
+compile-cache placement.
 
-Every wave of every scene kind traces through the XLA walk; a route only
-chooses how dead lanes are treated.  Routes of the removed Pallas kernel
-stack must raise, naming the route, instead of degrading silently.
+Every wave traces through the XLA walk.  The primary wave traces as it
+is; bounce and shadow waves sort their live rays to the front and park
+the dead ones (_traced_wavefront), which must not change any live ray's
+hit.
 """
 
 import dataclasses
@@ -16,80 +18,50 @@ import jax.numpy as jnp
 import pytest
 
 from radiance_tpu.api.sbt import ShaderBindingTable
-from radiance_tpu.engine import shaders
-from radiance_tpu.engine.pathtracer import (
-    LANE_ROUTES, REMOVED_ROUTES, SCHEDULERS, WAVES, WavefrontPathTracer,
-    _traced_wavefront, wave_route)
+from radiance_tpu.core import types
+from radiance_tpu.engine import pathtracer, shaders
+from radiance_tpu.engine.pathtracer import WavefrontPathTracer
 from radiance_tpu.ops import compaction, traversal
 from radiance_tpu.ops.intersect import FLT_MAX
 from radiance_tpu.scene import procedural
 from radiance_tpu.shading import camera
 
-from test_traversal import gen_rays, single_instance_scene
+from test_traversal import gen_rays
 from test_walk_oracle import scene_bundle
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _tracer(**kw):
+def _tracer():
     sbt = ShaderBindingTable.from_json(shaders.DEFAULT_SBT_RECORDS,
                                        shaders.SHADER_REGISTRY)
     return WavefrontPathTracer(
-        ray_generator=camera.physical_camera_raygen, sbt=sbt, **kw)
+        ray_generator=camera.physical_camera_raygen, sbt=sbt)
 
 
-@pytest.mark.parametrize("dead_lanes", LANE_ROUTES)
-@pytest.mark.parametrize("wave", WAVES)
-def test_every_wave_maps_to_an_xla_route(wave, dead_lanes):
-    route = wave_route(wave, dead_lanes)
-    assert route in LANE_ROUTES
-    # the primary wave has no dead lanes and arrives in pixel order
-    assert route == ("park" if wave == "primary" else dead_lanes)
+def _cornell_frame_inputs(size):
+    cornell = procedural.cornell_box()
+    res = dict(cornell.resources)
+    res["camera"] = camera.camera_params(types.PhysicalCamera(
+        width_pixel=float(size), height_pixel=float(size),
+        focal_length=0.035, sensor_width=0.05, focal_distance=8.0,
+        f_stop=0.0, z=4.0))
+    return cornell.device_scene(), res
 
 
-@pytest.mark.parametrize("name", sorted(REMOVED_ROUTES))
-def test_removed_route_raises(name):
-    with pytest.raises(ValueError, match=name):
-        _tracer(dead_lanes=name)
-    with pytest.raises(ValueError, match=name):
-        wave_route("bounce", name)
-    ds = single_instance_scene(n_tris=16, seed=2)
-    o = jnp.zeros((4, 3), jnp.float32)
-    with pytest.raises(ValueError, match=name):
-        _traced_wavefront(ds, o, o + 1.0, 1e-3, 1e3,
-                          jnp.ones(4, bool), route=name)
-
-
-@pytest.mark.parametrize("var", ["RADIANCE_ENGINE_STREAM3",
-                                 "RADIANCE_ENGINE_PRIMARY",
-                                 "RADIANCE_GEN1_LIVE", "RADIANCE_VMEM_MB"])
-def test_removed_route_env_raises(monkeypatch, var):
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(ValueError, match=var):
-        _tracer()
-
-
-def test_unknown_scheduler_and_wave_raise():
-    with pytest.raises(ValueError, match="scheduler"):
-        _tracer(scheduler="megakernel")
-    with pytest.raises(ValueError, match="wave"):
-        wave_route("sideways", "park")
-    assert set(SCHEDULERS) == {"monolith", "staged"}
-
-
-@pytest.mark.parametrize("scene", ["random", "tlas9"])
-@pytest.mark.parametrize("route", LANE_ROUTES)
-def test_dead_lane_routes_match_plain_trace(route, scene):
-    """Both dead-lane routes return the plain walk's record on live
-    lanes and a miss on dead ones, for single- and multi-instance
-    scenes."""
+@pytest.mark.parametrize("live", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("scene", ["random", "tlas2", "tlas9"])
+def test_compacted_wave_matches_plain_trace(scene, live):
+    """Sorting live rays to the front returns the plain walk's record on
+    live lanes and a miss on dead ones, for single- and multi-instance
+    scenes, with no lane, some or all of them alive."""
     _, ds, _ = scene_bundle(scene)
     rng = np.random.default_rng(4)
     o, d = (jnp.asarray(x) for x in gen_rays(rng, 300, spread=10.0))
-    alive = jnp.asarray(rng.uniform(size=300) < 0.5)
+    alive = jnp.asarray(rng.uniform(size=300) < live)
     plain = traversal.trace_rays(ds, o, d, 1e-3, 1e3)
-    got = jax.jit(lambda o, d, a: _traced_wavefront(
-        ds, o, d, 1e-3, 1e3, a, route=route))(o, d, alive)
+    got = jax.jit(lambda o, d, a: pathtracer._traced_wavefront(
+        ds, o, d, 1e-3, 1e3, a))(o, d, alive)
     am = np.asarray(alive)
     for f in ("t", "prim", "slot", "b1", "b2"):
         np.testing.assert_array_equal(np.asarray(getattr(got, f))[am],
@@ -99,32 +71,30 @@ def test_dead_lane_routes_match_plain_trace(route, scene):
     assert np.all(np.asarray(got.slot)[~am] == -1)
 
 
-def test_dead_lane_routes_render_the_same_frame():
-    """Park and argsort change lane order inside the trace only: the
-    engine's frame is identical."""
-    w = h = 16
-    cornell = procedural.cornell_box()
-    res = dict(cornell.resources)
-    from radiance_tpu.core import types
-    res["camera"] = camera.camera_params(types.PhysicalCamera(
-        width_pixel=float(w), height_pixel=float(h), focal_length=0.035,
-        sensor_width=0.05, focal_distance=8.0, f_stop=0.0, z=4.0))
-    scene = cornell.device_scene()
-    out = []
-    for lanes in LANE_ROUTES:
-        acc, img = _tracer(dead_lanes=lanes).render(
-            scene, res, jnp.zeros((w * h, 3), jnp.float32), 0, w, h,
-            batch=1, depth=2)
-        out.append((np.asarray(acc), np.asarray(img)))
-    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-6, atol=1e-7)
-    np.testing.assert_array_equal(out[0][1], out[1][1])
+def test_primary_wave_skips_compaction_without_changing_the_step():
+    """With every lane alive (the primary wave), tracing uncompacted and
+    tracing through the sort give the same engine step."""
+    n = 12 * 12
+    scene, res = _cornell_frame_inputs(12)
+    tracer = _tracer()
+    pix = jnp.arange(n, dtype=jnp.int32)
+    fid = jnp.uint32(0)
+    init = pathtracer._sample_init(tracer, res, pix, fid, fid)
+    steps = [jax.jit(lambda st, p=p: pathtracer._sample_step(
+        tracer, scene, res, pix, fid, jnp.int32(0), st, debug=0,
+        hit_offset=tracer.hit_offset, miss_index=tracer.miss_index,
+        primary=p))(init) for p in (True, False)]
+    for a, b in zip(*steps):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_tracer_replace_keeps_validation():
-    t = _tracer()
-    assert dataclasses.replace(t, scheduler="staged").scheduler == "staged"
-    with pytest.raises(ValueError):
-        dataclasses.replace(t, dead_lanes="gen1_live")
+def test_tracer_has_no_route_options():
+    """One engine path: the tracer takes no scheduler or dead-lane
+    option, and naming one is an error."""
+    fields = {f.name for f in dataclasses.fields(WavefrontPathTracer)}
+    assert not fields & {"scheduler", "dead_lanes"}
+    with pytest.raises(TypeError):
+        dataclasses.replace(_tracer(), dead_lanes="park")
 
 
 def test_coherence_key_groups_octants():
@@ -147,15 +117,10 @@ def test_no_f32_dot_on_the_traced_path():
         ds, o, d, 1e-3, 1e3))(o, d))
     assert "dot_general" not in jaxpr
     n = 16
-    cornell = procedural.cornell_box()
-    res = dict(cornell.resources)
-    from radiance_tpu.core import types
-    res["camera"] = camera.camera_params(types.PhysicalCamera(
-        width_pixel=4.0, height_pixel=4.0, focal_length=0.035,
-        sensor_width=0.05, focal_distance=8.0, f_stop=0.0, z=4.0))
+    scene, res = _cornell_frame_inputs(4)
     frame = _tracer().frame_fn(batch=1, depth=2)
     jaxpr = str(jax.make_jaxpr(frame)(
-        cornell.device_scene(), res, jnp.zeros((n, 3), jnp.float32),
+        scene, res, jnp.zeros((n, 3), jnp.float32),
         jnp.uint32(0), jnp.arange(n, dtype=jnp.int32)))
     assert "dot_general" not in jaxpr
 
